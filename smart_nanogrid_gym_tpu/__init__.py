@@ -1,8 +1,7 @@
-"""smart_nanogrid_gym_tpu — a TPU-native smart-nanogrid environment engine.
+"""smart_nanogrid_gym_tpu — a smart-nanogrid environment engine for JAX accelerators.
 
 A from-scratch re-design of the capabilities of Dellintel98/smart-nanogrid-gym
-(reference mounted read-only at /root/reference) as a pure-functional JAX
-framework: one jittable step function vmapped over thousands of env instances,
+(the reference) as a pure-functional JAX framework: one jittable step function vmapped over thousands of env instances,
 counter-based PRNG schedules, device-mesh sharding for multi-host scale, and
 actor-learner training (PPO/DDPG) fully on device.
 

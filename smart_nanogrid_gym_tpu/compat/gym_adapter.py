@@ -67,7 +67,7 @@ _SERIES_TO_JSON = {
 
 
 class SmartNanogridEnv(_GYM_BASE):
-    """Reference-compatible single-env wrapper around the TPU engine."""
+    """Reference-compatible single-env wrapper around the batched engine."""
 
     metadata = {"render_modes": []}
 

@@ -6,7 +6,7 @@ The reference trains with stable-baselines3 and ships 50 PPO checkpoints
 predictor load back (reference: solvers/evaluator.py:49-77,
 solvers/predictor.py:60-74).  This module ingests those artifacts directly —
 no torch, no SB3 — so the one concrete trained-policy ground truth in the
-reference ecosystem runs on the TPU engine:
+reference ecosystem runs on this engine:
 
 - an SB3 ``.zip`` holds ``policy.pth`` (a torch-zip serialized state_dict of
   plain float32 tensors) plus a ``data`` JSON of hyperparameters;
@@ -14,12 +14,12 @@ reference ecosystem runs on the TPU engine:
   torch state_dict uses are ``collections.OrderedDict``, ``torch.*Storage``
   markers, persistent-id storage references, and
   ``torch._utils._rebuild_tensor_v2`` — each is re-implemented over numpy;
-- the tensors are re-laid-out into the flax :class:`..solvers.networks.
-  ActorCritic` pytree (same 64-64 tanh torso as SB3's default MlpPolicy).
+- the tensors are re-laid-out into the :class:`..solvers.networks.
+  ActorCritic` param pytree (same 64-64 tanh torso as SB3's default MlpPolicy).
 
 The resulting params run through every evaluation path in this framework
-(paired same-day comparison, single-day prediction, and the fused at-scale
-Pallas evaluator).
+(paired same-day comparison, single-day prediction, and the at-scale
+evaluator).
 """
 
 from __future__ import annotations
@@ -126,7 +126,7 @@ def load_sb3_zip(path: str) -> tuple[dict[str, np.ndarray], dict]:
 
 
 # ---------------------------------------------------------------------------
-# SB3 MlpPolicy (PPO default) → flax ActorCritic
+# SB3 MlpPolicy (PPO default) → ActorCritic params
 # ---------------------------------------------------------------------------
 
 _PPO_TENSOR_NAMES = (
@@ -142,13 +142,13 @@ _PPO_TENSOR_NAMES = (
 
 def actor_critic_params_from_sb3(state: dict[str, np.ndarray]) -> dict:
     """Map an SB3 default-MlpPolicy PPO state_dict onto the
-    :class:`..solvers.networks.ActorCritic` flax param pytree.
+    :class:`..solvers.networks.ActorCritic` param pytree.
 
     SB3's ActorCriticPolicy (default net_arch) is two separate 64-64 tanh
     torsos (``mlp_extractor.policy_net`` / ``value_net``) with linear heads
     (``action_net`` / ``value_net``) and a state-independent ``log_std`` —
     exactly the ActorCritic architecture here.  torch Linear stores weights
-    as (out, in); flax Dense as (in, out), hence the transposes.
+    as (out, in); the ActorCritic kernels as (in, out), hence the transposes.
     """
     missing = [n for n in _PPO_TENSOR_NAMES if n not in state]
     if missing:

@@ -1,7 +1,7 @@
 """Vectorized Gymnasium adapter backed by the batched device engine.
 
 The reference has no vectorized execution at all (SB3 drives one raw env,
-solvers/RL/ppo_train.py:89-92).  This adapter exposes the batched TPU engine
+solvers/RL/ppo_train.py:89-92).  This adapter exposes the batched engine
 through the ``gymnasium.vector.VectorEnv`` interface so existing vector-API
 training code (SB3 VecEnv-style loops, cleanrl, etc.) can drive thousands of
 envs with one device call per step.

@@ -1,7 +1,7 @@
 """Static environment configuration.
 
 The reference exposes its configuration entirely through ``SmartNanogridEnv.__init__``
-kwargs (reference: envs/smart_nanogrid_environment.py:32-34).  In the TPU build the
+kwargs (reference: envs/smart_nanogrid_environment.py:32-34).  In this build the
 same switches become a frozen, hashable dataclass that is passed as a *static*
 argument to ``jax.jit`` — every flag combination compiles its own branch-free XLA
 program (SURVEY.md §7.3: penalty modes / pv / battery / v2x must be static).

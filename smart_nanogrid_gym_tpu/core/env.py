@@ -26,7 +26,7 @@ from .transition import StepResult, observe, reset, step
 
 
 class SmartNanogridTPU:
-    """TPU-native smart-nanogrid environment engine.
+    """Batched smart-nanogrid environment engine.
 
     All methods are pure functions of ``(params, state, ...)``; the instance
     holds only the static config and cached jitted callables.
@@ -86,7 +86,7 @@ class SmartNanogridTPU:
         batched: bool = True,
         key: jnp.ndarray | None = None,
     ):
-        """Roll exactly one day via the fused time-major kernel
+        """Roll exactly one day via the fused time-major scan
         (:func:`..core.rollout.fused_day_rollout`).
 
         ``policy_fn(obs, key) -> actions``.  Days are fixed-length, so rollouts

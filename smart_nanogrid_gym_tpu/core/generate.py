@@ -6,7 +6,7 @@ Two producers of :class:`..core.state.DaySchedule`:
    reference's per-charger day generation loop
    (utils/charging_station.py:200-279).  The reference consumes a *global*
    MT19937 stream with order-dependent, conditionally-consumed draws (SURVEY.md
-   Q5) — that design cannot scale to thousands of parallel envs, so the TPU
+   Q5) — that design cannot scale to thousands of parallel envs, so this
    build draws a fixed block of uniforms per (charger, timestep) from a
    counter-based key and reproduces the *distributional* semantics exactly:
 
@@ -52,9 +52,8 @@ def generate_schedule(
     """Generate one day's schedule for all N chargers (jit/vmap-friendly).
 
     ``uniforms`` optionally supplies the ``(T, 5, N)`` uniform block instead of
-    drawing it from ``key`` — the contract shared with the fused
-    generation+rollout Pallas kernel (ops/pallas_gen_rollout.py), which consumes
-    the same block and must produce bit-identical schedules.
+    drawing it from ``key`` (tests pin the generator's distribution through
+    it).
     """
     N = config.num_chargers
     T = config.steps_per_day

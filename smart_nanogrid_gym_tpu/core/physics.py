@@ -2,8 +2,8 @@
 
 Each function re-expresses one reference component as vectorised jnp math with
 ``where``-selects instead of Python branches, so the whole step fuses into a
-single XLA program (no data-dependent control flow — everything here runs on
-the VPU in one pass over the (batch, chargers) axes under vmap).
+single XLA program (no data-dependent control flow — everything here is
+element-wise work in one pass over the (batch, chargers) axes under vmap).
 
 Sign/flag conventions are replicated from the reference *exactly*, including
 its quirks:

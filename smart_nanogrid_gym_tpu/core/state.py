@@ -3,7 +3,7 @@
 The reference keeps its day state scattered across Python objects — per-charger
 ``zeros(25)`` arrays (utils/charger.py:16-19), list-of-list arrival/departure
 schedules (utils/charging_station.py:21-26), and scalar BESS fields
-(utils/battery_energy_storage_system.py:6-22).  The TPU build collapses all of
+(utils/battery_energy_storage_system.py:6-22).  This build collapses all of
 it into two struct-of-arrays pytrees:
 
 - :class:`DaySchedule` — the immutable per-day tables, **precomputed** at

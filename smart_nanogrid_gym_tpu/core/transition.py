@@ -1,6 +1,6 @@
 """The pure environment transition: ``reset`` / ``observe`` / ``step``.
 
-This is the TPU-native replacement for the entire reference call stack
+This is the batched, jittable replacement for the entire reference call stack
 ``SmartNanogridEnv.step → CentralManagementSystem.manage_nanogrid →
 {ChargingStation, BatteryEnergyStorageSystem, PVSystemManager, Accountant,
 Penaliser}`` (SURVEY.md §3.3).  One call = one fused XLA program; no Python

@@ -1,7 +1,7 @@
 """Device-mesh sharding of env batches.
 
 The reference has no parallel execution of any kind (SURVEY.md §2.3) — one env
-object stepped by a single Python loop.  The TPU-native scaling model:
+object stepped by a single Python loop.  The scaling model here:
 
 - envs are embarrassingly parallel; the env batch is sharded over a 1-D
   ``envs`` mesh axis (multi-host: the same axis spans hosts — each host
@@ -53,12 +53,12 @@ def sharded_rollout_fn(
     Returns ``rollout(params, states, obs, keys) -> (states', obs', (obs, rew,
     done))`` where every argument/result has a leading env axis sharded over
     ``mesh``.  The body is per-shard pure vmapped stepping — XLA inserts no
-    collectives (verified by test_parallel.py) so scaling is linear over ICI.
+    collectives (verified by test_parallel.py), so scaling is linear.
     """
     num_days = max(1, (num_steps or config.steps_per_day) // config.steps_per_day)
 
     def shard_body(params, states, obs, keys):
-        # keys: (num_days,) day keys (replicated); fused kernel per day.
+        # keys: (num_days,) day keys (replicated); one fused day scan per day.
         # Chained days pass the previous trailing obs (continuation invariant).
         trajs = []
         obs0 = obs
@@ -83,6 +83,18 @@ def sharded_rollout_fn(
         check_vma=False,
     )
     return jax.jit(sharded)
+
+
+def shard_block(x, mesh: Mesh | None, axis: int = 0, axis_name: str = ENV_AXIS):
+    """This shard's block of ``x``, an array laid out over the *global* env
+    batch along ``axis``, inside a ``shard_map`` body over ``mesh``; ``x``
+    itself without a mesh.  Learners draw per-env randomness for the global
+    batch and take their block, so a mesh changes no env's random stream."""
+    if mesh is None:
+        return x
+    size = x.shape[axis] // mesh.shape[axis_name]
+    return jax.lax.dynamic_slice_in_dim(
+        x, jax.lax.axis_index(axis_name) * size, size, axis)
 
 
 def replicate(tree, mesh: Mesh):

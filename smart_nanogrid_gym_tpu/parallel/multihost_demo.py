@@ -1,9 +1,9 @@
 """Multi-process distributed worker — a runnable multi-host demonstration.
 
-The container has one TPU chip, so the multi-host path (BASELINE config 5)
-is demonstrated with REAL separate processes over the CPU backend: N
+The multi-host path (BASELINE config 5) is demonstrated with REAL separate
+processes over the CPU backend: N
 OS processes × 4 virtual devices each, wired by ``jax.distributed`` with gloo
-collectives standing in for DCN.  Everything else is exactly the production
+collectives standing in for the inter-host network.  Everything else is exactly the production
 path: host-local env-shard generation (global-index keys), a global 1-D env
 mesh spanning all processes, the zero-collective sharded rollout, and the
 sharded PPO train step whose gradient ``psum`` crosses processes.
@@ -20,10 +20,6 @@ batch, PPO train-step mean return, process/device counts.  The values are
 identical on every process (global arrays + replicated learner) and identical
 to a single-process run of the same global batch — the process-count-
 invariance contract tests/test_multihost.py pins.
-
-On a real TPU pod slice the same flow applies verbatim with the TPU backend:
-drop the XLA_FLAGS / --platform cpu, let ``initialize_distributed`` pick up
-the pod metadata, and the mesh spans every chip of every host.
 """
 
 from __future__ import annotations
@@ -41,15 +37,12 @@ def main(argv=None):
     p.add_argument("--coordinator", default="localhost:12355")
     p.add_argument("--global-batch", type=int, default=32)
     p.add_argument("--train-batch", type=int, default=16)
-    p.add_argument("--platform", default="cpu", choices=["cpu", "tpu"],
-                   help="cpu: virtual-device demo with gloo; tpu: real pod")
     p.add_argument("--seed", type=int, default=3)
     args = p.parse_args(argv)
 
     import jax
 
-    if args.platform == "cpu":
-        jax.config.update("jax_cpu_collectives_implementation", "gloo")
+    jax.config.update("jax_cpu_collectives_implementation", "gloo")
     if args.num_processes > 1:
         # Goes through the production wrapper (not a direct
         # jax.distributed.initialize) so the multi-process tests exercise the
@@ -61,8 +54,7 @@ def main(argv=None):
             num_processes=args.num_processes,
             process_id=args.process_id,
         )
-    if args.platform == "cpu":
-        jax.config.update("jax_default_device", jax.local_devices(backend="cpu")[0])
+    jax.config.update("jax_default_device", jax.local_devices(backend="cpu")[0])
 
     import jax.numpy as jnp
     import numpy as np
@@ -73,7 +65,7 @@ def main(argv=None):
     from . import distributed as D
     from .mesh import ENV_AXIS, sharded_rollout_fn
 
-    devices = jax.devices(args.platform)
+    devices = jax.devices("cpu")
     mesh = Mesh(np.asarray(devices), (ENV_AXIS,))
 
     config = NanogridConfig(num_chargers=4, pv_system=True, battery_system=True)
@@ -104,7 +96,7 @@ def main(argv=None):
         "process": args.process_id,
         "num_processes": args.num_processes,
         "global_devices": len(devices),
-        "local_devices": len(jax.local_devices(backend=args.platform)),
+        "local_devices": len(jax.local_devices(backend="cpu")),
         "rollout_mean_day_return": round(rollout_mean, 6),
         "ppo_mean_return": round(float(metrics.mean_return), 6),
     }), flush=True)

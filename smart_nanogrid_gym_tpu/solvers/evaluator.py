@@ -1,7 +1,7 @@
 """Policy evaluation flows.
 
 Re-expresses the reference evaluator/predictor scripts (solvers/evaluator.py,
-solvers/predictor.py) TPU-natively:
+solvers/predictor.py) as batched on-device programs:
 
 - the reference compares controllers by replaying the *same generated day*
   across models via ``initial_values.json`` round-trips
@@ -24,8 +24,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core.config import NanogridConfig
-from ..core.generate import generate_schedule
 from ..core.params import NanogridParams
+from ..core.rollout import fused_day_rollout
 from ..core.state import StepInfo
 from ..core.transition import reset as core_reset, step as core_step
 
@@ -86,28 +86,24 @@ def evaluate_policy_at_scale(
     seed: int = 0,
     algorithm: str = "ppo",
 ) -> dict[str, float]:
-    """Massive-scale deterministic-actor evaluation in ONE fused TPU kernel.
+    """Large-scale deterministic-actor evaluation in one jitted program.
 
-    Runs ``num_days`` freshly generated days × ``batch`` envs of the trained
-    MLP actor closed-loop via :func:`..ops.pallas_gen_policy_rollout.
-    pallas_gen_policy_multiday` — the whole-benchmark fusion of the reference's
-    evaluate loop (solvers/evaluator.py:13-24 over fresh days), at hundreds of
-    millions of env-steps/s.  TPU-only (the in-kernel PRNG has no CPU
-    lowering); use :func:`evaluate_policies_same_days` for paired CPU-testable
-    comparisons.
+    Runs ``num_days`` freshly generated days for each of ``batch`` envs with
+    the trained actor (PPO mean action or DDPG actor) closed-loop — the
+    reference's evaluate loop (solvers/evaluator.py:13-24) over fresh days.
+    Days are a ``lax.scan`` of reset (fresh schedule, battery SoC carried
+    from the previous day like the learners' resets) and
+    :func:`..core.rollout.fused_day_rollout`.  Day ``d`` of env ``i`` is
+    generated from ``fold_in(fold_in(PRNGKey(seed), d), i)``.
 
     Returns ``{"mean_day_return", "std_day_return", "total_days"}``.
     """
-    from ..ops.param_guard import check_baked_params
-
-    # guard eagerly (params stay traced inside the cached jit)
-    check_baked_params(config, params, "evaluate_policy_at_scale",
-                       generation=True, battery_init=True)
-    stats = _at_scale_jit(config, num_days, batch, algorithm)(
+    ret_sum, sq_sum = _at_scale_jit(config, num_days, batch, algorithm)(
         params, net_params, seed)
     total = float(num_days * batch)
-    mean = float(stats[0].sum()) / total
-    var = float(stats[1].sum()) / total - mean * mean
+    # per-env partial sums are combined in float64 on the host
+    mean = float(np.sum(np.asarray(ret_sum, np.float64))) / total
+    var = float(np.sum(np.asarray(sq_sum, np.float64))) / total - mean * mean
     return {
         "mean_day_return": mean,
         "std_day_return": float(np.sqrt(max(var, 0.0))),
@@ -115,19 +111,49 @@ def evaluate_policy_at_scale(
     }
 
 
+def _deterministic_actor(config: NanogridConfig, algorithm: str, net_params) -> Callable:
+    from .networks import ActorCritic, DDPGActor
+
+    low, high = config.action_bounds()
+    if algorithm == "ppo":
+        net = ActorCritic(action_dim=config.num_actions)
+        lo, hi = jnp.asarray(low), jnp.asarray(high)
+        return lambda obs, key: jnp.clip(net.apply(net_params, obs)[0], lo, hi)
+    if algorithm == "ddpg":
+        net = DDPGActor(config.num_actions, tuple(low.tolist()), tuple(high.tolist()))
+        return lambda obs, key: net.apply(net_params, obs)
+    raise ValueError(f"unknown algorithm {algorithm!r} (expected 'ppo' or 'ddpg')")
+
+
 @functools.lru_cache(maxsize=32)
 def _at_scale_jit(config: NanogridConfig, num_days: int, batch: int,
                   algorithm: str = "ppo"):
     """One compiled evaluation program per (config, days, batch, algorithm) —
-    repeated at-scale calls (checkpoint sweeps) reuse it instead of re-jitting
-    a fresh partial every call (which cost seconds of retrace per checkpoint)."""
-    from ..ops.pallas_gen_policy_rollout import pallas_gen_policy_multiday
+    repeated at-scale calls (checkpoint sweeps) reuse it instead of
+    re-tracing.  Returns ``run(params, net_params, seed) -> (Σ day return,
+    Σ day return²)``, each summed over days per env: shape ``(batch,)``."""
+    reset_fn = jax.vmap(functools.partial(core_reset, config))
 
     def run(params, net_params, seed):
-        return pallas_gen_policy_multiday(
-            config, params, net_params, num_days, seed, batch,
-            check_params=False, actor=algorithm,
-        )
+        policy = _deterministic_actor(config, algorithm, net_params)
+        bparams = jax.tree.map(lambda x: jnp.broadcast_to(x, (batch,) + x.shape), params)
+        base = jax.random.PRNGKey(seed)
+        env_idx = jnp.arange(batch)
+        batt0 = jnp.broadcast_to(params.batt_init_soc, (batch,))
+
+        def day(carry, d):
+            batt_soc, ret_sum, sq_sum = carry
+            k_day = jax.random.fold_in(base, d)
+            keys = jax.vmap(lambda i: jax.random.fold_in(k_day, i))(env_idx)
+            states, _ = reset_fn(bparams, keys, batt_soc, None)
+            states, (_, rewards, _) = fused_day_rollout(config, bparams, states, policy, k_day)
+            ret = rewards.sum(axis=0)
+            return (states.batt_soc, ret_sum + ret, sq_sum + ret * ret), None
+
+        zero = jnp.zeros((batch,), params.dtype)
+        (_, ret_sum, sq_sum), _ = jax.lax.scan(
+            day, (batt0, zero, zero), jnp.arange(num_days))
+        return ret_sum, sq_sum
 
     return jax.jit(run)
 

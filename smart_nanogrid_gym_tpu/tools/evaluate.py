@@ -1,4 +1,4 @@
-"""Evaluation CLI — the TPU-native counterpart of solvers/evaluator.py.
+"""Evaluation CLI — the on-device counterpart of solvers/evaluator.py.
 
 The reference loads every trained model, replays 100 *identical* days across
 all of them via initial_values.json round-trips, and plots per-episode rewards
@@ -24,6 +24,7 @@ from ..solvers.evaluator import evaluate_policies_same_days
 from ..solvers.ppo import PPOLearner
 from ..solvers.rbc import make_rbc_policy_fn
 from ..utils.checkpoint import latest_step, restore_checkpoint
+from ..utils.compile_cache import enable_compile_cache
 from .train_ppo import VARIANTS, build_config
 
 
@@ -45,8 +46,8 @@ def main(argv=None):
     p.add_argument("--checkpoint-step", type=int, default=None)
     p.add_argument("--at-scale", type=int, default=None, metavar="DAYS",
                    help="ALSO evaluate each checkpoint (PPO or DDPG) on DAYS "
-                        "freshly generated days x 4096 envs in one fused TPU "
-                        "kernel (solvers.evaluator.evaluate_policy_at_scale)")
+                        "freshly generated days x 4096 envs in one jitted "
+                        "program (solvers.evaluator.evaluate_policy_at_scale)")
     p.add_argument("--sb3-zip", action="append", default=[], metavar="ZIP",
                    help="evaluate an SB3 PPO checkpoint zip as shipped by the "
                         "reference (solvers/RL/models/*/NNN.zip); repeatable")
@@ -59,6 +60,7 @@ def main(argv=None):
                    help="save the per-episode reward comparison figure "
                         "(reference solvers/evaluator.py:111-127)")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     config = build_config(args)
     params = make_params(config, dtype=jnp.float32)

@@ -1,4 +1,4 @@
-"""Single-day prediction CLI — the TPU-native counterpart of solvers/predictor.py.
+"""Single-day prediction CLI — the on-device counterpart of solvers/predictor.py.
 
 Rolls one day per policy (RBC, restored PPO checkpoints, and/or the
 reference's shipped SB3 zips) and dumps the full telemetry to a
@@ -24,6 +24,7 @@ from ..compat.gym_adapter import SmartNanogridEnv
 from ..solvers.rbc import make_rbc_policy_fn
 from ..solvers.ppo import PPOLearner
 from ..utils.checkpoint import latest_step, restore_checkpoint
+from ..utils.compile_cache import enable_compile_cache
 from .train_ppo import VARIANTS
 
 
@@ -49,6 +50,7 @@ def main(argv=None):
                    help="save the per-model total-reward bar chart the "
                         "reference predictor draws (solvers/predictor.py:104-120)")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     v = VARIANTS[args.variant]
     env = SmartNanogridEnv(

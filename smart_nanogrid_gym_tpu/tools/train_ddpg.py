@@ -1,4 +1,4 @@
-"""DDPG training CLI — the TPU-native counterpart of solvers/RL/ddpg_train.py.
+"""DDPG training CLI — the on-device counterpart of solvers/RL/ddpg_train.py.
 
 Matches the reference setup: OU action noise with sigma=0.5 (ddpg_train.py:111),
 the same four env variants, per-epoch numbered checkpoints under a
@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from ..core import make_params
 from ..solvers.ddpg import DDPGConfig, DDPGLearner
 from ..utils.checkpoint import save_checkpoint
+from ..utils.compile_cache import enable_compile_cache
 from .train_ppo import VARIANTS, build_config
 
 
@@ -43,6 +44,7 @@ def main(argv=None):
                         "(default: <models-dir>/<run>/logs)")
     p.add_argument("--log-every", type=int, default=1)
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     config = build_config(args)
     learner = DDPGLearner(config, DDPGConfig(ou_sigma=args.ou_sigma))

@@ -14,6 +14,7 @@ from __future__ import annotations
 import argparse
 import json
 
+from ..utils.compile_cache import enable_compile_cache
 from .evaluate import main as evaluate_main
 from .train_ddpg import main as train_ddpg_main
 from .train_ppo import VARIANTS, main as train_ppo_main
@@ -31,6 +32,7 @@ def main(argv=None):
     p.add_argument("--models-dir", default="models")
     p.add_argument("--eval-days", type=int, default=100)
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     common = [
         "--num-chargers", str(args.num_chargers),

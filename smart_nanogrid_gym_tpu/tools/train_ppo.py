@@ -1,4 +1,4 @@
-"""PPO training CLI — the TPU-native counterpart of solvers/RL/ppo_train.py.
+"""PPO training CLI — the on-device counterpart of solvers/RL/ppo_train.py.
 
 The reference trains SB3 PPO for 50 epochs x 850 episodes x 24 steps = 1.02M
 sequential env steps against one Python env (ppo_train.py:94-102).  Here each
@@ -27,6 +27,7 @@ from ..core import NanogridConfig, make_params
 from ..parallel.mesh import make_mesh
 from ..solvers.ppo import PPOConfig, PPOLearner
 from ..utils.checkpoint import save_checkpoint
+from ..utils.compile_cache import enable_compile_cache
 
 # The four model variants of the reference training scripts
 # (solvers/RL/ppo_train.py:22-75).
@@ -77,6 +78,7 @@ def main(argv=None):
     p.add_argument("--guard", action="store_true",
                    help="wrap training in a NaN guard with auto-rollback")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     config = build_config(args)
     if args.distributed:

@@ -1,7 +1,7 @@
 """Committed trained artifact: restore + performance regression.
 
 The reference ships trained SB3 checkpoints; this repo ships its own flagship
-policy trained on a real TPU (artifacts/PPO-b-pv-bounded-sparse-4ch-1h, see
+policy trained on an earlier accelerator (artifacts/PPO-b-pv-bounded-sparse-4ch-1h, see
 artifacts/README.md).  This test restores it and verifies the recorded
 evaluation still reproduces: the policy must beat the RBC baseline by a wide
 margin on freshly generated paired days.

@@ -95,8 +95,8 @@ def test_rbc_matches_reference_rbc():
         zero_idx = rng.choice(8, size=3, replace=False)
         states[16 + zero_idx] = 0.0
         ref_actions = np.asarray(ref.select_action(states), dtype=np.float64)
-        tpu_actions = np.asarray(rbc_policy(config, jnp.asarray(states)))
-        np.testing.assert_allclose(tpu_actions, ref_actions, rtol=1e-12)
+        eng_actions = np.asarray(rbc_policy(config, jnp.asarray(states)))
+        np.testing.assert_allclose(eng_actions, ref_actions, rtol=1e-12)
 
 
 def test_heterogeneous_batch_varied_params():

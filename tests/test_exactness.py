@@ -1,4 +1,4 @@
-"""Trajectory-exactness tests: the TPU engine vs the live reference implementation.
+"""Trajectory-exactness tests: the engine vs the live reference implementation.
 
 The reference (with the minimal Q1/Q7 fixes documented in tests/oracle.py) is run
 in-process as the ground-truth oracle.  Both engines are driven from the *same*
@@ -43,7 +43,7 @@ def make_config(**overrides):
 
 
 def run_pair(ref_kwargs, actions_per_step, seed=0, pv_shift=1.0):
-    """Run reference and TPU engines on an identical day; return both trajectories."""
+    """Run the reference and the engine on an identical day; return both trajectories."""
     np.random.seed(seed)
     env = oracle.make_reference_env(**ref_kwargs)
     ref = oracle.run_reference_episode(env, actions_per_step, pv_shift=pv_shift)
@@ -77,18 +77,18 @@ def run_pair(ref_kwargs, actions_per_step, seed=0, pv_shift=1.0):
     return ref, {"reset_obs": np.asarray(obs0), "observations": observations, "rewards": rewards, "infos": infos}
 
 
-def assert_trajectories_match(ref, tpu, context=""):
+def assert_trajectories_match(ref, eng, context=""):
     np.testing.assert_allclose(
-        tpu["reset_obs"], ref["reset_obs"], atol=ATOL, rtol=RTOL,
+        eng["reset_obs"], ref["reset_obs"], atol=ATOL, rtol=RTOL,
         err_msg=f"{context}: reset observation mismatch",
     )
-    assert len(tpu["observations"]) == len(ref["observations"])
-    for i, (o_ref, o_tpu) in enumerate(zip(ref["observations"], tpu["observations"])):
+    assert len(eng["observations"]) == len(ref["observations"])
+    for i, (o_ref, o_eng) in enumerate(zip(ref["observations"], eng["observations"])):
         np.testing.assert_allclose(
-            o_tpu, o_ref, atol=ATOL, rtol=RTOL, err_msg=f"{context}: obs mismatch at step {i}"
+            o_eng, o_ref, atol=ATOL, rtol=RTOL, err_msg=f"{context}: obs mismatch at step {i}"
         )
     np.testing.assert_allclose(
-        tpu["rewards"], ref["rewards"], atol=ATOL, rtol=RTOL,
+        eng["rewards"], ref["rewards"], atol=ATOL, rtol=RTOL,
         err_msg=f"{context}: reward mismatch",
     )
 
@@ -105,8 +105,8 @@ def random_actions(num_steps, dim, seed, low=-1.0, high=1.0):
 def test_basic_zero_actions(penalty_mode):
     kw = make_config(vehicle_uncharged_penalty_mode=penalty_mode)
     actions = [np.zeros(4)] * 24
-    ref, tpu = run_pair(kw, actions, seed=11)
-    assert_trajectories_match(ref, tpu, f"basic/{penalty_mode}/zero")
+    ref, eng = run_pair(kw, actions, seed=11)
+    assert_trajectories_match(ref, eng, f"basic/{penalty_mode}/zero")
 
 
 @pytest.mark.parametrize("penalty_mode", ["on_departure", "sparse", "dense"])
@@ -114,8 +114,8 @@ def test_basic_zero_actions(penalty_mode):
 def test_basic_random_actions(penalty_mode, seed):
     kw = make_config(vehicle_uncharged_penalty_mode=penalty_mode)
     actions = random_actions(24, 4, seed + 100, low=0.0, high=1.0)  # non-v2x: actions >= 0
-    ref, tpu = run_pair(kw, actions, seed=seed)
-    assert_trajectories_match(ref, tpu, f"basic/{penalty_mode}/random/{seed}")
+    ref, eng = run_pair(kw, actions, seed=seed)
+    assert_trajectories_match(ref, eng, f"basic/{penalty_mode}/random/{seed}")
 
 
 @pytest.mark.parametrize("seed", [3, 4])
@@ -127,8 +127,8 @@ def test_b_pv_random_actions(seed):
     # chargers in [0, 1], battery in [-1, 1] (env.py:101-110)
     rng = np.random.RandomState(seed + 7)
     actions = [np.concatenate([rng.uniform(0, 1, 4), rng.uniform(-1, 1, 1)]) for _ in range(24)]
-    ref, tpu = run_pair(kw, actions, seed=seed, pv_shift=1.25)
-    assert_trajectories_match(ref, tpu, f"b-pv/{seed}")
+    ref, eng = run_pair(kw, actions, seed=seed, pv_shift=1.25)
+    assert_trajectories_match(ref, eng, f"b-pv/{seed}")
 
 
 @pytest.mark.parametrize("seed", [5])
@@ -138,8 +138,8 @@ def test_v2x_random_actions(seed):
     # (SURVEY.md Q4), so keep discharging mild enough not to flip the sign.
     rng = np.random.RandomState(seed)
     actions = [rng.uniform(-0.1, 1.0, 4) for _ in range(24)]
-    ref, tpu = run_pair(kw, actions, seed=seed)
-    assert_trajectories_match(ref, tpu, f"v2x/{seed}")
+    ref, eng = run_pair(kw, actions, seed=seed)
+    assert_trajectories_match(ref, eng, f"v2x/{seed}")
 
 
 def test_v2x_b_pv_random_actions():
@@ -151,8 +151,8 @@ def test_v2x_b_pv_random_actions():
     )
     rng = np.random.RandomState(42)
     actions = [rng.uniform(-0.05, 1.0, 9) for _ in range(24)]
-    ref, tpu = run_pair(kw, actions, seed=9, pv_shift=0.8)
-    assert_trajectories_match(ref, tpu, "v2x-b-pv")
+    ref, eng = run_pair(kw, actions, seed=9, pv_shift=0.8)
+    assert_trajectories_match(ref, eng, "v2x-b-pv")
 
 
 def test_requested_soc_and_uniform_capacities():
@@ -161,23 +161,23 @@ def test_requested_soc_and_uniform_capacities():
         enable_different_vehicle_battery_capacities=False,
     )
     actions = random_actions(24, 4, 55, low=0.0, high=1.0)
-    ref, tpu = run_pair(kw, actions, seed=6)
-    assert_trajectories_match(ref, tpu, "requested-soc")
+    ref, eng = run_pair(kw, actions, seed=6)
+    assert_trajectories_match(ref, eng, "requested-soc")
 
 
 def test_price_models_match():
     for model in (1, 2, 3, 4):
         kw = make_config(price_model=model)
         actions = random_actions(6, 4, model, low=0.0, high=1.0)
-        ref, tpu = run_pair(kw, actions, seed=20 + model)
-        assert_trajectories_match(ref, tpu, f"price-model-{model}")
+        ref, eng = run_pair(kw, actions, seed=20 + model)
+        assert_trajectories_match(ref, eng, f"price-model-{model}")
 
 
 def test_two_hour_interval():
     kw = make_config(time_interval="2h")
     actions = random_actions(12, 4, 77, low=0.0, high=1.0)
-    ref, tpu = run_pair(kw, actions, seed=13)
-    assert_trajectories_match(ref, tpu, "2h-interval")
+    ref, eng = run_pair(kw, actions, seed=13)
+    assert_trajectories_match(ref, eng, "2h-interval")
 
 
 def test_telemetry_matches_reference_series():
@@ -241,9 +241,9 @@ def test_telemetry_matches_reference_series():
         "battery_over_discharging_penalty": env.battery_over_discharging_penalty_per_timestep,
     }
     for field, ref_series in series_pairs.items():
-        tpu_series = [np.asarray(getattr(info, field)) for info in infos]
+        eng_series = [np.asarray(getattr(info, field)) for info in infos]
         np.testing.assert_allclose(
-            np.asarray(tpu_series, dtype=np.float64),
+            np.asarray(eng_series, dtype=np.float64),
             np.asarray(ref_series, dtype=np.float64),
             atol=ATOL, rtol=RTOL, err_msg=f"telemetry series {field!r} mismatch",
         )

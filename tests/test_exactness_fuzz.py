@@ -4,7 +4,7 @@ test_exactness.py pins hand-picked configurations; this sweep samples the
 *full* supported configuration cross-product (price models 0-4, 1-8 chargers,
 pv/battery/v2x, capacity/requested-SoC toggles, all four penalty modes, both
 working intervals — SURVEY.md §5.6) with random action sequences, and requires
-the TPU engine to match the live reference oracle to 1e-9 on every
+the engine to match the live reference oracle to 1e-9 on every
 observation and reward.  The draw is seeded, so each CI run replays the same
 configurations; bumping ``FUZZ_ROUNDS`` widens the sweep locally.
 """
@@ -125,7 +125,7 @@ def test_random_config_matches_reference(round_idx):
     kw = _draw_config(rng)
     actions = _draw_actions(rng, kw)
     pv_shift = round(rng.randint(0, 181) / 100.0, 2)
-    ref, tpu = run_pair(kw, actions, seed=int(rng.randint(10_000)),
+    ref, eng = run_pair(kw, actions, seed=int(rng.randint(10_000)),
                         pv_shift=pv_shift)
     label = (f"fuzz[{round_idx}] {kw['number_of_chargers']}ch "
              f"pv={kw['pv_system_available_in_model']} "
@@ -133,4 +133,4 @@ def test_random_config_matches_reference(round_idx):
              f"v2x={kw['vehicle_to_everything']} "
              f"pm={kw['price_model']} {kw['time_interval']} "
              f"{kw['vehicle_uncharged_penalty_mode']}")
-    assert_trajectories_match(ref, tpu, label)
+    assert_trajectories_match(ref, eng, label)

@@ -105,24 +105,24 @@ def test_distribution_matches_reference():
         cap = sa["Vehicle_capacities"][:, :24]
         ref_caps.extend(np.unique(cap[cap > 0]).tolist())
 
-    tpu_occ, tpu_socs, tpu_caps, tpu_count = [], [], [], []
+    eng_occ, eng_socs, eng_caps, eng_count = [], [], [], []
     for seed in range(60):
         s = _gen(seed + 1000)
         occ = np.asarray(s.occupancy)[:, :24]
-        tpu_occ.append(occ.mean())
+        eng_occ.append(occ.mean())
         is_arr = np.asarray(s.is_arrival)[:, :24]
-        tpu_count.append(is_arr.sum())
+        eng_count.append(is_arr.sum())
         soc0 = np.asarray(s.soc_init)[:, :24]
-        tpu_socs.extend(soc0[soc0 > 0].tolist())
+        eng_socs.extend(soc0[soc0 > 0].tolist())
         cap = np.asarray(s.capacity)[:, :24]
-        tpu_caps.extend(np.unique(cap[cap > 0]).tolist())
+        eng_caps.extend(np.unique(cap[cap > 0]).tolist())
 
     # Tolerances sized at ~3 standard errors for these sample sizes.
-    assert abs(np.mean(ref_occ) - np.mean(tpu_occ)) < 0.05
-    assert abs(np.mean(ref_count) - np.mean(tpu_count)) < 1.2
-    assert abs(np.mean(ref_socs) - np.mean(tpu_socs)) < 0.06
-    assert abs(np.std(ref_socs) - np.std(tpu_socs)) < 0.04
-    assert abs(np.mean(ref_caps) - np.mean(tpu_caps)) < 8.0
+    assert abs(np.mean(ref_occ) - np.mean(eng_occ)) < 0.05
+    assert abs(np.mean(ref_count) - np.mean(eng_count)) < 1.2
+    assert abs(np.mean(ref_socs) - np.mean(eng_socs)) < 0.06
+    assert abs(np.std(ref_socs) - np.std(eng_socs)) < 0.04
+    assert abs(np.mean(ref_caps) - np.mean(eng_caps)) < 8.0
 
 
 def test_json_round_trip():

@@ -91,8 +91,7 @@ def test_training_improves_over_random():
 def test_bf16_update_sweep_trains():
     """update_matmul_dtype=bf16 (mixed precision: f32 master params, bf16
     matmul operands inside the loss) must keep params f32, metrics finite,
-    and still learn.  Measured a LOSS on v5e at the SB3-default 64x64 torso
-    (see PPOConfig docstring) — the option targets large custom torsos."""
+    and still learn."""
     cfg = NanogridConfig(
         num_chargers=4, pv_system=False, battery_system=False, penalty_mode="dense"
     )

@@ -74,12 +74,12 @@ def test_engine_matches_reference_through_negative_demand(seed):
     rng = np.random.RandomState(500 + seed)
     # full discharge on every charger — the strongest possible negative demand
     actions = [rng.uniform(-1.0, -0.5, size=4) for _ in range(24)]
-    ref, tpu = run_pair(V2X_KW, actions, seed=seed, pv_shift=0.0)
-    assert_trajectories_match(ref, tpu, f"q4/full-discharge/{seed}")
+    ref, eng = run_pair(V2X_KW, actions, seed=seed, pv_shift=0.0)
+    assert_trajectories_match(ref, eng, f"q4/full-discharge/{seed}")
 
     demand = [
         float(i.total_charging_power) + float(i.total_discharging_power)
-        for i in tpu["infos"]
+        for i in eng["infos"]
     ]
     assert min(demand) < 0, (
         "episode never drove total demand negative — Q4 region untested")
@@ -94,10 +94,10 @@ def test_engine_negative_demand_with_battery_matches_reference():
         np.concatenate([rng.uniform(-1.0, -0.4, size=4), rng.uniform(-1.0, 1.0, size=1)])
         for _ in range(24)
     ]
-    ref, tpu = run_pair(kw, actions, seed=21, pv_shift=0.0)
-    assert_trajectories_match(ref, tpu, "q4/battery/full-discharge")
+    ref, eng = run_pair(kw, actions, seed=21, pv_shift=0.0)
+    assert_trajectories_match(ref, eng, "q4/battery/full-discharge")
     demand = [
         float(i.total_charging_power) + float(i.total_discharging_power)
-        for i in tpu["infos"]
+        for i in eng["infos"]
     ]
     assert min(demand) < 0

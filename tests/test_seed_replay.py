@@ -40,7 +40,7 @@ def test_trajectory_replay_from_seed(seed, variant):
     env = oracle.make_reference_env(**kw)
     ref = oracle.run_reference_episode(env, actions, pv_shift=1.0)
 
-    # TPU engine: schedule reconstructed from the bare seed, no recorded data
+    # engine: schedule reconstructed from the bare seed, no recorded data
     config = NanogridConfig.from_reference_kwargs(**kw)
     params = make_params(config, dtype=jnp.float64)
     schedule = schedule_from_reference_seed(seed, config)

@@ -2,7 +2,7 @@
 
 The reference offers 15/30/45-min intervals in its config lists
 (solvers/RL/ppo_train.py:19) but crashes on them (fixed zeros(25) arrays,
-SURVEY.md Q3).  The TPU build supports arbitrary intervals *correctly* while
+SURVEY.md Q3).  This build supports arbitrary intervals *correctly* while
 matching the reference exactly at 1h/2h (covered in test_exactness).
 """
 

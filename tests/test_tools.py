@@ -126,22 +126,6 @@ def test_api_docs_current():
             "smart_nanogrid_gym_tpu.tools.gen_api_docs")
 
 
-def test_readme_bench_table_current():
-    """README's benchmark table must match BENCH_TABLE.json (regenerate with
-    python -m smart_nanogrid_gym_tpu.tools.gen_bench_table) — the guard that
-    docs/API.md already has, closing round-1's stale-headline drift for good."""
-    from smart_nanogrid_gym_tpu.tools import gen_bench_table as g
-
-    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(repo_root, "README.md")) as fp:
-        text = fp.read()
-    start = text.index(g.START_MARK)
-    end = text.index(g.END_MARK) + len(g.END_MARK)
-    assert text[start:end] == g.render(g.load_table(repo_root)), (
-        "README bench table is stale — run python -m "
-        "smart_nanogrid_gym_tpu.tools.gen_bench_table")
-
-
 def test_gymnasium_registration():
     gymnasium = pytest.importorskip("gymnasium")
     import smart_nanogrid_gym_tpu.envs  # noqa: F401  (side effect: register)
